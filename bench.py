@@ -1,23 +1,11 @@
 #!/usr/bin/env python
-"""Headline benchmark CLI — alias onto vae_training_tpu._scripts.bench (see
-run.py's shim note).
-
-One supervisor-specific wrinkle: when invoked as `python bench.py` in
-supervise mode, VAE_BENCH_SUPERVISOR is exported BEFORE the implementation
-import so its module-level jax import stays skipped — the watching parent
-must remain a pure-stdlib process (it exists to observe a child whose jax
-init may wedge)."""
-import os
+"""Training-throughput benchmark CLI — alias onto
+vae_training_tpu._scripts.bench (see run.py's shim note)."""
 import sys
-
-if (__name__ == "__main__"
-        and not os.environ.get("VAE_BENCH_CHILD")
-        and "--no-supervise" not in sys.argv):
-    os.environ["VAE_BENCH_SUPERVISOR"] = "1"
 
 from vae_training_tpu._scripts import bench as _impl
 
 sys.modules[__name__] = _impl
 
 if __name__ == "__main__":
-    sys.exit(_impl.cli())
+    sys.exit(_impl.main())

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Public CLI, reference flag surface (/root/reference/run.py) — alias onto
+"""Public CLI, reference flag surface (reference/run.py) — alias onto
 vae_training_tpu._scripts.run so `python run.py ...` and `from run import
 main` work verbatim from a checkout while the installed wheel claims no
 top-level `run` module."""

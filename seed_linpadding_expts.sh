@@ -1,7 +1,7 @@
 #!/usr/bin/env bash
 # Linear-gaussian padding sweep: 3 dataset seeds × the (data-dim, padding,
 # latent) grid of the original experiment set. Produces the same runs as the
-# reference script (/root/reference/seed_linpadding_expts.sh), expressed as a
+# reference script (reference/seed_linpadding_expts.sh), expressed as a
 # loop over the grid. 100k batches, linear enc/dec, Adam 1e-3, tunable
 # decoder variance, epsilon = -1.
 set -e

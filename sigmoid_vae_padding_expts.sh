@@ -1,7 +1,7 @@
 #!/usr/bin/env bash
 # Sigmoid-manifold padding sweep: default seed + seeds 24/48 over the
 # (data-dim, padding, latent) grid. Same runs as the reference script
-# (/root/reference/sigmoid_vae_padding_expts.sh), expressed as a loop.
+# (reference/sigmoid_vae_padding_expts.sh), expressed as a loop.
 # 150k batches, linear enc/dec, epsilon = -3, tunable decoder variance.
 set -e
 

@@ -2,7 +2,7 @@
 # Sphere-manifold padding sweep: default seed + seeds 24/48 over the
 # (data-dim, padding, latent) grid with 200|200|200 MLP encoder/decoder.
 # Same runs as the reference script
-# (/root/reference/sphere_vae_padding_expts.sh), expressed as a loop.
+# (reference/sphere_vae_padding_expts.sh), expressed as a loop.
 # 150k batches, epsilon = -3, tunable decoder variance.
 set -e
 

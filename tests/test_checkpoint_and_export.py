@@ -82,7 +82,7 @@ def test_resume_is_bit_exact_bf16_moments(tmp_outdir):
     every step, so 100+100 == 200 exactly, same as f32)."""
     import jax.numpy as jnp
 
-    from vae_training_tpu.kernels.linear_vae import _adam_state
+    from vae_training_tpu.train.state import adam_state
 
     straight, _, _ = build(tmp_outdir, "a16", adam_dtype="bf16")
     straight.state, _ = straight.fns.train_chunk(straight.state, 200)
@@ -93,7 +93,7 @@ def test_resume_is_bit_exact_bf16_moments(tmp_outdir):
 
     resumed, _, _ = build(tmp_outdir, "c16", resume=out, adam_dtype="bf16")
     assert int(resumed.state.step) == 100
-    ra = _adam_state(resumed.state.opt_state)
+    ra = adam_state(resumed.state.opt_state)
     assert ra.mu["Encoder"]["FC0"]["kernel"].dtype == jnp.bfloat16
     assert ra.mu["Encoder"]["FC0"]["bias"].dtype == jnp.float32
     resumed.state, _ = resumed.fns.train_chunk(resumed.state, 100)
@@ -111,8 +111,8 @@ def test_model_pkl_layout_and_roundtrip(tmp_outdir):
 
     with open(path, "rb") as f:
         sd = pickle.load(f)
-    # Reference optimizer-state-dict layout (/root/reference/model.py:85-89);
-    # target is the RAW param tree — pre-Linen flax.nn.Model serializes
+    # Reference optimizer-state-dict layout (reference/model.py:85-89);
+    # target is the RAW param tree — the reference's pre-Linen model serializes
     # without a "params" wrapper (the reference indexes
     # initial_params['Decoder'] directly, vae.py:87-105)
     assert set(sd) == {"target", "state"}
@@ -167,7 +167,7 @@ def test_resume_artifacts_equal_uninterrupted(tmp_outdir):
     """A preempted + resumed run must emit a losses.npz IDENTICAL to an
     uninterrupted run's: checkpoints carry the full host-side run state
     (StatsRecorder history, eval-key counter, host key chain), not just the
-    TrainState (ref artifact contract: /root/reference/model.py:246-252)."""
+    TrainState (ref artifact contract: reference/model.py:246-252)."""
     from vae_training_tpu.runio.checkpoint import wait_for_pending_saves
 
     def drive(trainer):
@@ -243,7 +243,7 @@ def test_make_output_dir_reuse_existing(tmp_outdir):
 
 @pytest.mark.slow  # reliability e2e — full-gate coverage
 def test_mixed_backends_restore_newest(tmp_outdir):
-    """A newer orbax sync save must win over an older msgpack async save
+    """A newer orbax sync save must win over an older npz async save
     (and vice versa): restore follows the meta's backend, and the
     step-ordering guard holds across backends."""
     from vae_training_tpu.runio.checkpoint import (
@@ -254,12 +254,12 @@ def test_mixed_backends_restore_newest(tmp_outdir):
     trainer, out, _ = build(tmp_outdir, "mix")
     old_state = jax.device_get(trainer.state)  # step 0 snapshot
     trainer.state, _ = trainer.fns.train_chunk(trainer.state, 20)
-    # async msgpack save at step 20 (simulating --checkpoint_every) ...
-    save_checkpoint_async(out, trainer.state, backend="msgpack").result()
+    # async npz save at step 20 (simulating --checkpoint_every) ...
+    save_checkpoint_async(out, trainer.state, backend="npz").result()
     trainer.state, _ = trainer.fns.train_chunk(trainer.state, 20)
     # ... then a newer orbax sync save at step 40 (--ckpt_backend orbax)
     save_checkpoint_orbax(out, trainer.state)
-    # a stale queued msgpack write must be refused across backends
+    # a stale queued npz write must be refused across backends
     save_checkpoint(out, old_state)
     restored = restore_checkpoint(out, jax.device_get(trainer.state))
     assert int(restored.step) == 40
@@ -271,7 +271,7 @@ def test_mixed_backends_restore_newest(tmp_outdir):
 
 
 def test_async_save_honors_backend(tmp_outdir):
-    """save_checkpoint_async(backend='orbax') writes orbax, not msgpack."""
+    """save_checkpoint_async(backend='orbax') writes orbax, not npz."""
     from vae_training_tpu.runio.checkpoint import (
         ORBAX_NAME,
         save_checkpoint_async,
@@ -281,7 +281,7 @@ def test_async_save_honors_backend(tmp_outdir):
     trainer.state, _ = trainer.fns.train_chunk(trainer.state, 10)
     save_checkpoint_async(out, trainer.state, backend="orbax").result()
     assert os.path.exists(os.path.join(out, ORBAX_NAME))
-    assert not os.path.exists(os.path.join(out, "ckpt.msgpack"))
+    assert not os.path.exists(os.path.join(out, "ckpt.npz"))
     restored = restore_checkpoint(out, jax.device_get(trainer.state))
     assert int(restored.step) == 10
 
@@ -298,7 +298,7 @@ def test_orbax_backend_roundtrip(tmp_outdir):
     save_checkpoint_orbax(out, trainer.state,
                           extra_meta={"current_epsilon": -2.5})
     assert checkpoint_exists(out)
-    assert not os.path.exists(os.path.join(out, "ckpt.msgpack"))
+    assert not os.path.exists(os.path.join(out, "ckpt.npz"))
 
     resumed, _, _ = build(tmp_outdir, "orb2", resume=out)
     assert int(resumed.state.step) == 40
@@ -445,7 +445,7 @@ def test_orbax_old_promoted_not_deleted_before_new_save(tmp_outdir):
 
 
 def test_checkpoint_retention_keeps_prev(tmp_outdir):
-    """Each msgpack save sets the previous {ckpt, aux, meta} trio aside as
+    """Each npz save sets the previous {ckpt, aux, meta} trio aside as
     .prev (grid rollback depends on it); a same-step re-save must not
     clobber a meaningful .prev with a duplicate."""
     from vae_training_tpu.runio.checkpoint import (
@@ -524,3 +524,33 @@ def test_promote_prev_checkpoint_installs_prev(tmp_outdir):
     # a post-rollback save at a step below the discarded 20 must land
     save_checkpoint(out, trainer.state.replace(step=15))
     assert read_checkpoint_meta(out)["step"] == 15
+
+
+def test_npz_checkpoint_keeps_bf16_moments(tmp_outdir):
+    """The npz format stores bfloat16 leaves (--adam_dtype bf16 moments)
+    by their bit patterns: dtype and bits survive the round trip."""
+    import jax.numpy as jnp
+
+    from vae_training_tpu.train.state import adam_state
+
+    trainer, out, _ = build(tmp_outdir, "bf16npz", adam_dtype="bf16")
+    trainer.state, _ = trainer.fns.train_chunk(trainer.state, 5)
+    save_checkpoint(out, trainer.state)
+    got = restore_checkpoint(out, jax.device_get(trainer.state))
+    assert adam_state(got.opt_state).mu["Encoder"]["FC0"]["kernel"].dtype \
+        == jnp.bfloat16
+    assert tree_equal(got.opt_state, trainer.state.opt_state)
+    assert tree_equal(got.params, trainer.state.params)
+
+
+def test_npz_checkpoint_rejects_other_configuration(tmp_outdir):
+    """Restoring into a template of another model or optimizer layout is
+    a clear error naming the leaf, never a silent partial restore."""
+    trainer, out, _ = build(tmp_outdir, "small")
+    save_checkpoint(out, trainer.state)
+    other, _, _ = build(tmp_outdir, "wide", latent_dimension=8)
+    with pytest.raises(ValueError, match="leaf"):
+        restore_checkpoint(out, jax.device_get(other.state))
+    bf16, _, _ = build(tmp_outdir, "bf16tmpl", adam_dtype="bf16")
+    with pytest.raises(ValueError, match="expected bfloat16"):
+        restore_checkpoint(out, jax.device_get(bf16.state))

@@ -50,7 +50,7 @@ def test_linear_gaussian_manifold_and_score():
     ds = LinearGaussianDataset.create(2, dimension=6, intrinsic_dimension=3,
                                       padding_dimension=5)
     assert ds.A.shape == (6, 3)
-    # host numpy: SVD-family ops hang nondeterministically on TPU
+    # host numpy: the rank check the constructor itself runs
     assert int(np.linalg.matrix_rank(np.asarray(ds.A))) == 3
     assert ds.ndim == 11
     batch = ds.sample(KEY, 2048)
@@ -89,12 +89,12 @@ def test_sigmoid_structure_and_score():
     score = ds.score(batch)
     # Published quirk preserved: the manifold metric compares σ(z·A)
     # against the *logit* z·A, so it is NOT zero on real data
-    # (/root/reference/datasets.py:255-261).
+    # (reference/datasets.py:255-261).
     assert float(score["Squared Norm of Padding Dimensions"]) == 0.0
     assert float(score["Squared Norm of Manifold Dimension"]) > 0.0
     # Second published quirk preserved: the reference subtracts an (n,1)
     # codomain from an (n,) codomain_hat, broadcasting to an (n,n) matrix
-    # of all cross pairs before the mean (/root/reference/datasets.py:256-258).
+    # of all cross pairs before the mean (reference/datasets.py:256-258).
     # Our closed form must equal the literal broadcast.
     c_hat = np.asarray(batch[:, 3])
     c = np.asarray(batch[:, :3] @ ds.A)  # (n, 1)
@@ -191,8 +191,8 @@ def test_sampler_golden_values():
 
 def test_precision_flag_reaches_dataset_sampling_dots():
     """--precision fp32 threads into the manifold dots of the samplers
-    (matching the fused kernels' fp32_dots), and on CPU — where both modes
-    are exact fp32 — changes nothing."""
+    (matching the model's dots), and on CPU — where both modes are exact
+    fp32 — changes nothing."""
     import jax
 
     from vae_training_tpu.config import RunConfig

@@ -36,7 +36,7 @@ def test_gaussian_nll_matches_reference_formula():
     x = rng.randn(5, 7).astype(np.float32)
     x_hat = rng.randn(5, 7).astype(np.float32)
     eps = -1.3
-    # /root/reference/networks.py:96
+    # reference/networks.py:96
     expected = (0.5 * (x_hat - x) ** 2 / np.exp(eps)
                 + 0.5 * (np.log(2 * np.pi) + eps)).sum(-1)
     got = gaussian_nll(jnp.asarray(x), jnp.asarray(x_hat), jnp.asarray(eps))
@@ -131,7 +131,7 @@ def test_dual_sigmoid_decoder_sums_heads():
 
 def test_generate_adds_output_noise():
     """z2 output noise is added even in ancestral-sampling mode
-    (/root/reference/networks.py:81-83)."""
+    (reference/networks.py:81-83)."""
     model = build_vae(data_dim=4, latent_dim=2, epsilon=0.0)
     params = _init(model, 4, 2)
     z1 = jnp.zeros((2, 2))

@@ -63,7 +63,7 @@ def _trainer(tmpdir, **kw):
 def test_gaussian_latent_shape(tmp_outdir):
     tr = _trainer(tmp_outdir)
     z = tr.sample_latent(jax.random.PRNGKey(0), 12)
-    # z1 (latent) ⊕ z2 (data) — /root/reference/model.py:225-228
+    # z1 (latent) ⊕ z2 (data) — reference/model.py:225-228
     assert z.shape == (12, 5 + 5)
 
 

@@ -26,7 +26,7 @@ def test_grid_row_resumes_solo(tmp_path):
 
     # Resume seed 3's row solo and train 50 more steps.
     row_dir = os.path.join(data_dir, "g_seed3")
-    assert os.path.exists(os.path.join(row_dir, "ckpt.msgpack"))
+    assert os.path.exists(os.path.join(row_dir, "ckpt.npz"))
     solo_cfg = RunConfig(**{**cfg.to_json_dict(),
                             "name": "g3_more", "dataset_seed": 3,
                             "num_batches": 150, "resume": row_dir}).validate()

@@ -15,7 +15,7 @@ and asserts the run is equivalent to the single-process 8-device run:
   hierarchical ICI-then-DCN gradient reduction across processes.
 
 Reference capability being scaled: the vestigial cross-device hook at
-/root/reference/utils.py:215-221 per SURVEY §2.2's comm-backend row; the
+reference/utils.py:215-221 per SURVEY §2.2's comm-backend row; the
 reference itself is single-process.
 """
 
@@ -33,7 +33,7 @@ BASE_ARGS = [
     "--dataset", "linear_gaussian", "--encoder_layer_sizes", "",
     "--layer_sizes", "", "--latent_dim", "20", "--padding_dim", "9",
     "-dd", "3", "--num_batches", "120", "--epsilon", "-1", "-tdv",
-    "-ds", "2", "-lr", "1e-3", "--kernels", "xla", "--batch_size", "96",
+    "-ds", "2", "-lr", "1e-3", "--batch_size", "96",
 ]
 
 
@@ -132,7 +132,7 @@ def test_multihost_two_process_dp_matches_single_process(tmp_path):
 
     _assert_equivalent(os.path.join(out, "mh"), os.path.join(out, "sp"))
     # artifacts written exactly once, by process 0
-    for f in ("args.json", "losses.npz", "model.pkl", "ckpt.msgpack"):
+    for f in ("args.json", "losses.npz", "model.pkl", "ckpt.npz"):
         assert os.path.exists(os.path.join(out, "mh", f)), f
 
 
@@ -194,7 +194,7 @@ def test_multihost_seed_grid_matches_single_process(tmp_path):
         assert set(a.keys()) == set(b.keys())
         for k in a.keys():
             np.testing.assert_array_equal(a[k], b[k], err_msg=(s, k))
-        for f in ("args.json", "model.pkl", "ckpt.msgpack"):
+        for f in ("args.json", "model.pkl", "ckpt.npz"):
             assert os.path.exists(os.path.join(mh_dir, f)), (s, f)
 
 
@@ -233,7 +233,7 @@ PRE_ARGS = [
     "--dataset", "linear_gaussian", "--encoder_layer_sizes", "",
     "--layer_sizes", "", "--latent_dim", "8", "--padding_dim", "3",
     "-dd", "3", "--epsilon", "-1", "-tdv", "-ds", "2", "-lr", "1e-3",
-    "--kernels", "xla", "--batch_size", "96", "--mesh", "dp=8",
+    "--batch_size", "96", "--mesh", "dp=8",
     "--n_print", "40", "--checkpoint_every", "40",
 ]
 
@@ -246,7 +246,7 @@ def test_multihost_preemption_sigkill_resume_matches_uninterrupted(tmp_path):
     pair with --resume, and assert the final losses.npz is identical to an
     uninterrupted 2-process run of the same length (checkpoints carry the
     full host-side run state; the dp key streams are per-step fold_in and
-    therefore kill-point independent). msgpack only BY DESIGN: orbax saves
+    therefore kill-point independent). npz only BY DESIGN: orbax saves
     are collective across processes and deadlock against the primary-only
     write discipline — config.validate rejects that combination
     (test_multihost_orbax_backend_rejected)."""
@@ -312,8 +312,6 @@ def test_multihost_preemption_sigkill_resume_matches_uninterrupted(tmp_path):
 
 CHECK_FS_SCRIPT = """
 import os, sys
-from vae_training_tpu._platform import honor_platform_env
-honor_platform_env()
 import jax
 jax.distributed.initialize(
     coordinator_address=os.environ["JAX_COORDINATOR_ADDRESS"],
@@ -441,117 +439,11 @@ def test_multihost_plot_save_cadence_mid_run(tmp_path):
                        exact_stats=False)
 
 
-PALLAS_GRID_SCRIPT = r'''
-import os, sys
-from vae_training_tpu._platform import honor_platform_env
-honor_platform_env()
-import jax
-jax.distributed.initialize(
-    coordinator_address=os.environ["JAX_COORDINATOR_ADDRESS"],
-    num_processes=int(os.environ["JAX_NUM_PROCESSES"]),
-    process_id=int(os.environ["JAX_PROCESS_ID"]),
-)
-import jax.numpy as jnp
-import numpy as np
-from vae_training_tpu.config import RunConfig
-from vae_training_tpu.train.grid import GridTrainer, fetch_grid_rows
-from vae_training_tpu.kernels.linear_vae import (
-    N, chunk_seed_and_t0, pack_state, run_fused_chunk, unpack_state)
-
-N_STEPS, BATCH = 4, 32
-SEEDS = [2, 3, 4, 5, 6, 7, 8, 9]
-cfg = RunConfig(
-    name="pmh", dataset="linear_gaussian", encoder_layer_sizes="",
-    layer_sizes="", latent_dimension=6, padding_dim=3, dataset_dimension=3,
-    dataset_intrinsic_dimension=3, num_batches=100, batch_size=BATCH,
-    learning_rate=1e-3, epsilon=-1.0, tunable_decoder_var=True,
-    overwrite=True, tqdm=False, data_dir=sys.argv[1], mesh="dp=8",
-    kernels="auto").validate()
-trainer = GridTrainer(cfg, SEEDS)
-D, L = trainer.data_dim, trainer.latent_dim
-
-# identical external noise on every process (np-seeded)
-rng = np.random.RandomState(7)
-rows = []
-for _ in SEEDS:
-    x = rng.randn(N_STEPS, BATCH, D).astype(np.float32)
-    z1 = rng.randn(N_STEPS, BATCH, L).astype(np.float32)
-    z2 = rng.randn(N_STEPS, BATCH, D).astype(np.float32)
-    xp = np.zeros((N_STEPS, BATCH, N), np.float32); xp[..., :D] = x
-    z1p = np.zeros((N_STEPS, BATCH, N), np.float32); z1p[..., :L] = z1
-    z2p = np.zeros((N_STEPS, BATCH, N), np.float32); z2p[..., :D] = z2
-    rows.append((jnp.asarray(xp), jnp.asarray(z1p), jnp.asarray(z2p)))
-noise = tuple(jnp.stack([r[j] for r in rows]) for j in range(3))
-
-fused = trainer._build_pallas_grid_chunk(interpret=True,
-                                         external_noise=noise)
-assert fused is not None, "interpret fused chunk must build on CPU"
-init_rows = fetch_grid_rows(trainer.state_grid, trainer._owned_rows,
-                            len(SEEDS))
-new_grid, losses = fused(trainer.dataset_grid, trainer.state_grid, N_STEPS)
-leaf = jax.tree_util.tree_leaves(new_grid.params)[0]
-assert len(leaf.sharding.device_set) == 8, leaf.sharding
-loss_rows = fetch_grid_rows(losses, trainer._owned_rows, len(SEEDS))
-new_rows = fetch_grid_rows(new_grid, trainer._owned_rows, len(SEEDS))
-for i in trainer._owned_rows:
-    st = jax.tree_util.tree_map(jnp.asarray, init_rows[i])
-    solo_bufs, solo_losses = run_fused_chunk(
-        n_steps=N_STEPS, seed_and_t0=chunk_seed_and_t0(st),
-        a_t=jnp.zeros((N, N), jnp.float32),
-        buffers=pack_state(st, D, L, True),
-        batch=BATCH, data_dim=D, latent_dim=L, intrinsic_dim=3,
-        var_added=0.0, eps_const=-1.0, tdv=True, lr=1e-3,
-        external_noise=tuple(n[i] for n in noise), interpret=True)
-    np.testing.assert_array_equal(loss_rows[i], np.asarray(solo_losses),
-                                  err_msg=f"row {i} losses")
-    solo_state = unpack_state(st, solo_bufs, N_STEPS, D, L, True)
-    got = jax.tree_util.tree_leaves_with_path(new_rows[i].params)
-    want = {jax.tree_util.keystr(p): v for p, v in
-            jax.tree_util.tree_leaves_with_path(solo_state.params)}
-    for p, v in got:
-        np.testing.assert_array_equal(
-            np.asarray(v), np.asarray(want[jax.tree_util.keystr(p)]),
-            err_msg=f"row {i} {jax.tree_util.keystr(p)}")
-print("PALLAS-GRID-OK", trainer._owned_rows, flush=True)
-'''
-
-
-@pytest.mark.slow
-@pytest.mark.skipif(sys.platform != "linux", reason="gloo CPU collectives")
-def test_multihost_pallas_grid_kernel_bitwise(tmp_path):
-    """The REAL fused grid kernel body (interpret mode) sharded across a
-    2-process mesh: each process's owned rows match solo-interpret kernel
-    rows bitwise — the multihost analogue of test_grid_mesh_pallas. Also
-    exercises the multi-process fused-chunk branch (donation, no XLA
-    fallback wrapper) and fetch_grid_rows on kernel outputs."""
-    port = _free_port()
-    procs = []
-    for pid in (0, 1):
-        coord = {
-            "JAX_COORDINATOR_ADDRESS": f"localhost:{port}",
-            "JAX_NUM_PROCESSES": 2,
-            "JAX_PROCESS_ID": pid,
-        }
-        procs.append(subprocess.Popen(
-            [sys.executable, "-c", PALLAS_GRID_SCRIPT, str(tmp_path)],
-            cwd=REPO, env=_child_env(4, coord),
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        ))
-    owned = []
-    for p in procs:
-        stdout, stderr = p.communicate(timeout=600)
-        assert p.returncode == 0, stderr[-3000:]
-        assert "PALLAS-GRID-OK" in stdout, (stdout, stderr[-1000:])
-        owned.append(stdout.split("PALLAS-GRID-OK")[1].strip())
-    # the two processes owned disjoint halves of the grid
-    assert owned[0] != owned[1]
-
-
 GRID_PRE_ARGS = [
     "--dataset", "linear_gaussian", "--encoder_layer_sizes", "",
     "--layer_sizes", "", "--latent_dim", "8", "--padding_dim", "3",
     "-dd", "3", "--epsilon", "-1", "-tdv", "-ds", "2", "-lr", "1e-3",
-    "--kernels", "xla", "--batch_size", "32", "--mesh", "dp=8",
+    "--batch_size", "32", "--mesh", "dp=8",
     "--n_print", "50", "--n_plot", "100",
     "--seed_grid", ",".join(str(s) for s in GRID_SEEDS),
 ]
@@ -622,21 +514,19 @@ def test_multihost_seed_grid_sigkill_resume_matches_uninterrupted(tmp_path):
     # (save_checkpoint's retention layout). The resume must roll this row
     # back to the common step on every process, promote owner-side, and
     # still produce bit-identical artifacts.
-    from flax import serialization as _ser
-
     skew_dir = row_dirs[steps.index(common)]
-    with open(os.path.join(skew_dir, "ckpt.msgpack"), "rb") as f:
-        raw = _ser.msgpack_restore(f.read())
-    assert int(np.asarray(raw["step"]).reshape(-1)[0]) == common
-    raw["step"] = np.asarray(raw["step"]) + 100
-    for name in ("ckpt.msgpack", "ckpt_aux.pkl", "ckpt_meta.json"):
+    with np.load(os.path.join(skew_dir, "ckpt.npz")) as z:
+        raw = dict(z)
+    assert int(raw[".step"]) == common
+    raw[".step"] = raw[".step"] + 100
+    for name in ("ckpt.npz", "ckpt_aux.pkl", "ckpt_meta.json"):
         pth = os.path.join(skew_dir, name)
         if os.path.exists(pth):
             os.replace(pth, pth + ".prev")
-    with open(os.path.join(skew_dir, "ckpt.msgpack"), "wb") as f:
-        f.write(_ser.msgpack_serialize(raw))
+    with open(os.path.join(skew_dir, "ckpt.npz"), "wb") as f:
+        np.savez(f, **raw)
     with open(os.path.join(skew_dir, "ckpt_meta.json"), "w") as f:
-        json.dump({"step": common + 100, "backend": "msgpack"}, f)
+        json.dump({"step": common + 100, "backend": "npz"}, f)
 
     results = _run_multihost(
         "mhgp", out, mesh="", mesh_flag=False,

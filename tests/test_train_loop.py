@@ -52,7 +52,7 @@ def test_artifacts_and_trace_shape(tmp_outdir):
     trainer.plot()
     trainer.save(final=True)
     files = set(os.listdir(out))
-    assert {"args.json", "losses.npz", "model.pkl", "ckpt.msgpack"} <= files
+    assert {"args.json", "losses.npz", "model.pkl", "ckpt.npz"} <= files
     assert "output_0.png" in files and "output_199.png" in files
     z = np.load(os.path.join(out, "losses.npz"), allow_pickle=True)
     # 200 train losses + 4 evals (batches 0,50,100,150)
@@ -124,7 +124,7 @@ def test_correlation_tracking(tmp_outdir):
     cr = z["Correlation Ratio"]
     assert cr.shape == (2,)  # evals at 0 and 100
     assert np.all(np.isfinite(cr))
-    # per-parameter granularity (/root/reference/vae.py:149-177): one
+    # per-parameter granularity (reference/vae.py:149-177): one
     # channel per param leaf, one value per eval
     per_param = [k for k in z.files if k.startswith("Correlation Ratio/")]
     leaves = {"Correlation Ratio/Encoder/FC0/kernel",

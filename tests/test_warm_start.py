@@ -1,5 +1,5 @@
 """Warm-start analytic initializers against the reference's formulas
-(/root/reference/vae.py:62-107). The deterministic part of each kernel is
+(reference/vae.py:62-107). The deterministic part of each kernel is
 checked exactly by subtracting the known perturbation scale."""
 
 import jax

@@ -1,9 +1,9 @@
 """Typed run configuration + the reference's exact CLI flag surface.
 
 The public API contract (BASELINE.md north star) is the reference's
-``run.py`` flags (/root/reference/run.py:8-43) and sweep scripts. This module
-keeps that flag surface verbatim and adds TPU-framework flags (mesh spec,
-kernel backend, resume, profiling) behind new names so every reference
+``run.py`` flags (reference/run.py:8-43) and sweep scripts. This module
+keeps that flag surface verbatim and adds framework flags (mesh spec,
+resume, profiling, seed grids) behind new names so every reference
 invocation is valid here unchanged.
 """
 
@@ -17,7 +17,7 @@ from typing import Optional
 
 @dataclass
 class RunConfig:
-    # --- reference flag surface (/root/reference/run.py:8-43) ------------
+    # --- reference flag surface (reference/run.py:8-43) ------------
     name: str = "run"
     num_batches: int = 15000
     num_epochs: int = 10000
@@ -44,12 +44,12 @@ class RunConfig:
     warm_start_linear: bool = False
     dataset_intrinsic_dimension: int = 3
     latent_off_dimension: int = 1
-    # post-parse hardcoded fields (/root/reference/run.py:40-42)
+    # post-parse hardcoded fields (reference/run.py:40-42)
     model: str = "VAE"
     latent_distribution: str = "gaussian"
     tqdm: bool = True
 
-    # --- TPU framework flags (new) ---------------------------------------
+    # --- framework flags (new) -------------------------------------------
     mesh: str = ""  # e.g. "dp=8" or "dp=4,tp=2"; "" = single device
     # Accept a -1 mesh wildcard that leaves devices idle (device count not
     # divisible by the explicit axes). Off by default: idle chips are a
@@ -60,12 +60,11 @@ class RunConfig:
     # default: silently losing the requested tensor parallelism is the same
     # throughput-loss class as idle wildcard chips — it must be explicit.
     tp_allow_replicated: bool = False
-    kernels: str = "auto"  # auto | xla | pallas
-    model_seed: int = 0  # reference fixes PRNGKey(0) (/root/reference/model.py:29)
+    model_seed: int = 0  # reference fixes PRNGKey(0) (reference/model.py:29)
     resume: Optional[str] = None  # checkpoint dir to resume from
     profile: bool = False  # jax.profiler trace of one training chunk
-    debug_nans: bool = False  # jax_debug_nans mode (TPU analogue of -nojit)
-    data_dir: str = "data"  # reference DATA_DIR (/root/reference/utils.py:11)
+    debug_nans: bool = False  # jax_debug_nans mode
+    data_dir: str = "data"  # reference DATA_DIR (reference/utils.py:11)
     checkpoint_every: int = 0  # 0 = only at plot cadence (reference behavior)
     seed_grid: str = ""  # e.g. "2,3,4": all seeds vmapped in ONE launch
     arch: str = "auto"  # auto | mlp | conv (conv for image datasets)
@@ -80,33 +79,31 @@ class RunConfig:
     # default for output parity.
     track_correlation: bool = False
     # Multi-host bring-up: call jax.distributed.initialize() before building
-    # the mesh, so --mesh axes span hosts (collectives ride ICI within a
-    # slice, DCN across slices). No-op on a single host.
+    # the mesh, so --mesh axes span hosts (collectives ride the links within
+    # a host and the network across hosts). No-op on a single host.
     multihost: bool = False
     # Stat / plot cadences (reference hardcodes 5000/50000 —
-    # /root/reference/model.py:123-124; configurable here).
+    # reference/model.py:123-124; configurable here).
     n_print: int = 5000
     n_plot: int = 50000
-    # Checkpoint serialization: flax msgpack (single file, fast) or orbax
-    # (ecosystem-standard tensorstore layout). --resume reads either.
-    ckpt_backend: str = "msgpack"
-    # Matmul precision on EVERY backend: fused kernels, the XLA/linen and
-    # conv model paths, and the dataset samplers' manifold dots (so both
-    # backends train on identically-rounded data). bf16 (default) is the MXU's
-    # native mode — single-pass bfloat16 operands with f32 accumulation,
-    # which is ALSO what XLA:TPU does for f32 dots by default, so both
-    # backends agree. fp32 forces Precision.HIGHEST (~3 bf16 passes per
-    # dot) for true-fp32 matmul arithmetic. Accumulation, ELBO, gradients,
-    # Adam, and master weights are f32 in both modes.
+    # Checkpoint serialization: npz (numpy only, one file) or orbax
+    # (ecosystem-standard tensorstore layout; optional dependency).
+    # --resume reads either.
+    ckpt_backend: str = "npz"
+    # Matmul precision of the model's dots and the dataset samplers'
+    # manifold dots. bf16 (the historical name of the default) leaves f32
+    # dots at the backend's default precision, which on the H100 lets XLA
+    # run them in TF32 (10-bit mantissa operands, f32 accumulation). fp32
+    # forces Precision.HIGHEST: true-fp32 matmul arithmetic. Accumulation,
+    # ELBO, gradients, Adam, and master weights are f32 in both modes.
     precision: str = "bf16"
     # Adam moment storage dtype. f32 (default) is bitwise-identical to
     # optax.adam / the reference's flax.optim.Adam. bf16 stores the WEIGHT
     # matrices' m/v moments in bfloat16 (compute stays f32; biases/epsilon
-    # keep f32 moments) — halves the optimizer's VMEM traffic, the measured
-    # bound of the fused MLP step. Opt-in because it changes the training
-    # trajectory (bf16 rounding of the moments); convergence validated
-    # across all three sweep families (PARITY.md). Must match across
-    # --resume (the checkpoint stores the moments in this dtype).
+    # keep f32 moments), halving the optimizer state. Opt-in because it
+    # changes the training trajectory (bf16 rounding of the moments). Must
+    # match across --resume (the checkpoint stores the moments in this
+    # dtype).
     adam_dtype: str = "f32"
 
     # --- derived ----------------------------------------------------------
@@ -124,22 +121,20 @@ class RunConfig:
                 f"(run.py:18, get_dataset returns None); pass one of "
                 f"{dataset_names()}."
             )
-        if self.kernels not in ("auto", "xla", "pallas"):
-            raise ValueError(f"--kernels must be auto|xla|pallas, got {self.kernels}")
         if self.arch not in ("auto", "mlp", "conv"):
             # consumers branch `if arch == "conv" else mlp` — a typo would
             # silently train the wrong architecture without this check
             raise ValueError(f"--arch must be auto|mlp|conv, got {self.arch}")
-        if self.ckpt_backend not in ("msgpack", "orbax"):
+        if self.ckpt_backend not in ("npz", "orbax"):
             raise ValueError(
-                f"--ckpt_backend must be msgpack|orbax, got {self.ckpt_backend}")
+                f"--ckpt_backend must be npz|orbax, got {self.ckpt_backend}")
         if self.ckpt_backend == "orbax" and getattr(self, "multihost", False):
             # Orbax's save protocol is COLLECTIVE under jax.distributed
             # (every process must enter StandardCheckpointer.save; its
             # internal barrier waits for the rest), which deadlocks against
             # this engine's process-0-owns-artifacts write discipline —
             # observed as a run that trains forever and never lands a
-            # checkpoint. The msgpack path is the multihost answer: the
+            # checkpoint. The npz path is the multihost answer: the
             # state is replicated, process 0 writes it whole, every process
             # restores from the shared filesystem (which --resume enforces).
             raise ValueError(
@@ -147,7 +142,7 @@ class RunConfig:
                 "orbax saves are collective across processes while this "
                 "engine's artifact writes are process-0-only (a primary-"
                 "gated orbax save deadlocks in its cross-process barrier). "
-                "Use the default msgpack backend for multihost runs."
+                "Use the default npz backend for multihost runs."
             )
         if self.precision not in ("fp32", "bf16"):
             raise ValueError(
@@ -163,7 +158,7 @@ class RunConfig:
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="TPU-native VAE training (reference-compatible CLI)"
+        description="VAE training on JAX/XLA (reference-compatible CLI)"
     )
     # Reference flags — names, defaults, and help mirror run.py:8-43.
     p.add_argument("name", help="The name of the experiment and output directory.")
@@ -188,10 +183,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--latent_dim", dest="latent_dimension", type=int, default=100)
     p.add_argument("-nojit", dest="nojit", action="store_true",
                    help="Disables just-in-time compilation for step-through "
-                        "debugging. Use with JAX_PLATFORMS=cpu — interpreted "
-                        "mode dispatches every op to the accelerator "
-                        "individually and is pathologically slow on remote "
-                        "TPU runtimes.")
+                        "debugging (every op dispatches individually; best "
+                        "with JAX_PLATFORMS=cpu).")
     p.add_argument("--padding_type", dest="padding_type", default="none",
                    choices=["zero", "gaussian", "none"])
     p.add_argument("-ds", "--dataset_seed", dest="dataset_seed", type=int, default=69)
@@ -207,7 +200,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-wsl", "--warm_start_linear", action="store_true")
     p.add_argument("-did", "--dataset_intrinsic_dimension", type=int, default=3)
     p.add_argument("-off", "--latent_off_dimension", type=int, default=1)
-    # TPU framework flags (new).
+    # Framework flags (new).
     p.add_argument("--mesh", dest="mesh", default="",
                    help="Device mesh spec, e.g. 'dp=8' or 'dp=4,tp=2'. "
                         "Empty = single device.")
@@ -221,9 +214,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Allow parameters whose dims are not divisible by "
                         "the tp mesh axis to train fully replicated (loud "
                         "per-parameter stderr note; default: error).")
-    p.add_argument("--kernels", dest="kernels", default="auto",
-                   choices=["auto", "xla", "pallas"],
-                   help="Compute backend for the fused train step.")
     p.add_argument("--model_seed", dest="model_seed", type=int, default=0)
     p.add_argument("--resume", dest="resume", default=None,
                    help="Checkpoint directory to resume training from. With "
@@ -257,37 +247,36 @@ def build_parser() -> argparse.ArgumentParser:
                         "correlation-ratio diagnostic at the final save.")
     p.add_argument("--multihost", dest="multihost", action="store_true",
                    help="Initialize jax.distributed before building the "
-                        "mesh (multi-host TPU slices; env-configured "
-                        "coordinator).")
+                        "mesh (multi-host runs; coordinator from "
+                        "JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / "
+                        "JAX_PROCESS_ID).")
     p.add_argument("--n_print", dest="n_print", type=int, default=5000,
                    help="Stat cadence in steps (reference: 5000).")
     p.add_argument("--n_plot", dest="n_plot", type=int, default=50000,
                    help="Plot/save cadence in steps (reference: 50000).")
-    p.add_argument("--ckpt_backend", dest="ckpt_backend", default="msgpack",
-                   choices=["msgpack", "orbax"],
+    p.add_argument("--ckpt_backend", dest="ckpt_backend", default="npz",
+                   choices=["npz", "orbax"],
                    help="Checkpoint format; --resume auto-detects either.")
     p.add_argument("--precision", dest="precision", default="bf16",
                    choices=["bf16", "fp32"],
-                   help="Fused-kernel matmul precision. bf16 (default) is "
-                        "the MXU-native mode — bfloat16 operands, f32 "
-                        "accumulation — matching XLA:TPU's default for f32 "
-                        "dots. fp32 forces true-fp32 matmuls "
-                        "(Precision.HIGHEST) for reference-exact arithmetic "
-                        "at ~3x the per-dot MXU cost.")
+                   help="Matmul precision. bf16 (default) keeps the "
+                        "backend's default for float32 dots, which on the "
+                        "H100 may run them in TF32. fp32 forces true-fp32 "
+                        "matmuls (Precision.HIGHEST) for reference-exact "
+                        "arithmetic.")
     p.add_argument("--adam_dtype", dest="adam_dtype", default="f32",
                    choices=["f32", "bf16"],
                    help="Adam moment storage: f32 (default, bitwise optax) "
                         "or bf16 weight-matrix moments (f32 compute; halves "
-                        "optimizer VMEM traffic — faster fused MLP steps; "
-                        "changes the trajectory by moment rounding). Must "
-                        "match across --resume.")
+                        "the optimizer state; changes the trajectory by "
+                        "moment rounding). Must match across --resume.")
     return p
 
 
 def parse_arguments(argv=None) -> RunConfig:
     args = build_parser().parse_args(argv)
     cfg = RunConfig(**vars(args))
-    # Post-parse hardcoded fields, mirroring /root/reference/run.py:40-42.
+    # Post-parse hardcoded fields, mirroring reference/run.py:40-42.
     cfg.model = "VAE"
     cfg.latent_distribution = "gaussian"
     cfg.tqdm = True

@@ -1,10 +1,10 @@
 """Dataset abstractions: pure-function samplers with analytic scoring oracles.
 
-TPU-first redesign of the reference's stateful ``Dataset`` /
-``DistributionDataset`` classes (/root/reference/datasets.py:12-52). The
+Accelerator-first redesign of the reference's stateful ``Dataset`` /
+``DistributionDataset`` classes (reference/datasets.py:12-52). The
 reference mutates a per-dataset PRNG key on every ``get_batch`` call from
 Python, which forces a host round-trip per training step. Here a dataset is
-an immutable pytree (``flax.struct.PyTreeNode``): static geometry as pytree
+an immutable pytree (``utils.pytree.PyTreeNode``): static geometry as pytree
 metadata, learned-manifold arrays (e.g. the mixing matrix ``A``) as leaves.
 ``sample(key, n)`` is a pure jit-able function, so the sampler compiles
 *inside* the fused train step and batches never leave the device.
@@ -20,10 +20,11 @@ from typing import ClassVar, Dict
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from ..utils.pytree import PyTreeNode
 
 
-class DistributionDataset(struct.PyTreeNode):
+class DistributionDataset(PyTreeNode):
     """An infinite sampler over a known manifold, with analytic scoring.
 
     Subclasses implement:
@@ -34,7 +35,7 @@ class DistributionDataset(struct.PyTreeNode):
       - ``ndim`` property — ambient dimensionality
 
     Mirrors the capability surface of the reference ABCs
-    (/root/reference/datasets.py:12-52): ``is_epochs`` False ⇒ the engine
+    (reference/datasets.py:12-52): ``is_epochs`` False ⇒ the engine
     uses the infinite-sampler training loop; ``shape``/``dimension`` feed
     model construction; ``save``/``load`` are manifold persistence hooks.
     """
@@ -79,19 +80,19 @@ class DistributionDataset(struct.PyTreeNode):
         raise NotImplementedError
 
     # Reference parity: get_batch(size, return_latents) returns latents=None
-    # for all live datasets (/root/reference/datasets.py:82-84,193-195,247-249).
+    # for all live datasets (reference/datasets.py:82-84,193-195,247-249).
     def get_batch(self, key: jax.Array, size: int, return_latents: bool = False):
         batch = self.sample(key, size)
         if return_latents:
             return batch, None
         return batch
 
-    # score_batch is the reference's name (/root/reference/datasets.py:67).
+    # score_batch is the reference's name (reference/datasets.py:67).
     def score_batch(self, batch: jax.Array) -> Dict[str, jax.Array]:
         return self.score(batch)
 
     # Manifold persistence. The reference's save/load are no-ops for all
-    # live datasets (/root/reference/datasets.py:94-98,224-228,275-279); here
+    # live datasets (reference/datasets.py:94-98,224-228,275-279); here
     # the manifold arrays are pytree leaves so checkpointing is handled by
     # runio.checkpoint — these remain hooks for exotic datasets.
     def save(self, fn: str) -> None:
@@ -112,7 +113,7 @@ def padding_energy(padding: jax.Array) -> jax.Array:
     """Mean squared norm of the padding coordinates — the shared oracle.
 
     Matches the reference metric `mean(sum(padding**2, axis=1))`
-    (/root/reference/datasets.py:205, :260) and `norm(padding)**2`
-    (/root/reference/datasets.py:71).
+    (reference/datasets.py:205, :260) and `norm(padding)**2`
+    (reference/datasets.py:71).
     """
     return jnp.mean(jnp.sum(jnp.square(padding), axis=1))

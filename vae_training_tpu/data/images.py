@@ -1,8 +1,8 @@
 """Epoch-mode image datasets for the conv-VAE configuration.
 
 The reference's epoch path trains from torch/torchvision dataloaders
-(/root/reference/model.py:176-193) and tiles results with OpenCV
-(/root/reference/utils.py:79-133). TPU-native replacement: the ENTIRE
+(reference/model.py:176-193) and tiles results with OpenCV
+(reference/utils.py:79-133). On-device replacement: the ENTIRE
 dataset lives as one device array; an epoch is a scanned pass over a
 shuffled index permutation computed on device — no host dataloader, no per
 -batch host↔device copies, no cv2.
@@ -22,7 +22,8 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from ..utils.pytree import PyTreeNode, static_field
 
 
 def _digit_image(rng: np.random.RandomState, size: int) -> np.ndarray:
@@ -54,7 +55,7 @@ def _digit_image(rng: np.random.RandomState, size: int) -> np.ndarray:
     return img * 2.0 - 1.0  # [-1, 1], the range img_tile expects
 
 
-class ImageDataset(struct.PyTreeNode):
+class ImageDataset(PyTreeNode):
     """Finite image corpus on device; epoch-mode training.
 
     ``images``: (n, h, w, c) float32 in [-1, 1]. The flattened pixel count
@@ -63,9 +64,9 @@ class ImageDataset(struct.PyTreeNode):
     """
 
     images: jax.Array
-    h: int = struct.field(pytree_node=False, default=28)
-    w: int = struct.field(pytree_node=False, default=28)
-    c: int = struct.field(pytree_node=False, default=1)
+    h: int = static_field(default=28)
+    w: int = static_field(default=28)
+    c: int = static_field(default=1)
 
     # --- constructors -----------------------------------------------------
     @classmethod
@@ -204,7 +205,7 @@ class ImageDataset(struct.PyTreeNode):
 
     def score(self, batch):
         # Epoch datasets have no analytic oracle; the engine skips scoring
-        # (mirrors /root/reference/model.py:161's is_epochs guard).
+        # (mirrors reference/model.py:161's is_epochs guard).
         return {}
 
     def score_batch(self, batch):

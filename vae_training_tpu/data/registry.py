@@ -1,6 +1,6 @@
 """Dataset registry / factory.
 
-Replaces the reference's ``get_dataset`` if-chain (/root/reference/run.py:46-54)
+Replaces the reference's ``get_dataset`` if-chain (reference/run.py:46-54)
 with an extensible registry. The reference silently returns ``None`` for its
 own default ``--dataset 4gaussian`` (and then crashes downstream); here an
 unknown name raises immediately with the available choices.

@@ -1,9 +1,9 @@
 """Stat aggregation, console writer, and losses.npz persistence.
 
 Replicates the reference's observability surface: in-memory per-stat history
-(/root/reference/model.py:35,195-205), the pipe-delimited console line, and
-the ``losses.npz`` layout written at every save (/root/reference/model.py:
-246-252 + /root/reference/vae.py:203-209), including its quirks where they
+(reference/model.py:35,195-205), the pipe-delimited console line, and
+the ``losses.npz`` layout written at every save (reference/model.py:
+246-252 + reference/vae.py:203-209), including its quirks where they
 are user-visible output:
 
   - the npz "VAE Loss" channel is the long interleaved per-train-step +
@@ -14,7 +14,7 @@ are user-visible output:
   - "Correlation Ratio" appears only on the final save.
 
 The reference's double-append of non-floatable stats
-(/root/reference/model.py:198-203) is a bug with no user-visible effect on
+(reference/model.py:198-203) is a bug with no user-visible effect on
 the live datasets and is fixed (single append).
 """
 
@@ -53,7 +53,7 @@ class StatsRecorder:
                     console_only: Dict | None = None) -> str:
         """Append to history and return the console line.
 
-        Format matches /root/reference/model.py:195-205:
+        Format matches reference/model.py:195-205:
         ``Batch | N | stat | val | stat | val ...`` (3 decimal places).
 
         ``console_only`` entries (e.g. the wall-clock steps/sec rate) appear

@@ -1,12 +1,12 @@
 """Warm-start analytic initializers.
 
-Re-implements the reference's parameter surgery (/root/reference/vae.py:62-107)
+Re-implements the reference's parameter surgery (reference/vae.py:62-107)
 as pure functions over linen param trees. The reference mutates the raw param
 dict in place; here we return a new tree (params are immutable pytrees).
 
 The *means* of the initializations match the reference's formulas exactly;
 perturbation draws use properly split keys (the reference reuses one key for
-every draw — /root/reference/vae.py:72-79 — which we do not copy since the
+every draw — reference/vae.py:72-79 — which we do not copy since the
 perturbations are i.i.d. noise either way).
 
 Both initializers only make sense for 0-hidden-layer (pure linear)
@@ -23,10 +23,10 @@ import numpy as np
 def warm_start_sigmoid(params: dict, dataset, latent_dim: int, key: jax.Array) -> dict:
     """Identity encoder/decoder restricted to the manifold dimensions.
 
-    Requires latent_dim == ambient dimension (/root/reference/vae.py:64).
+    Requires latent_dim == ambient dimension (reference/vae.py:64).
     The decoder/encoder kernels start as the identity with the block acting
     on padding dimensions zeroed; the posterior log-variance starts at 0 on
-    manifold dims and -3 on padding dims (/root/reference/vae.py:65-80).
+    manifold dims and -3 on padding dims (reference/vae.py:65-80).
     """
     data_dim = dataset.dimension
     if latent_dim != data_dim:
@@ -69,7 +69,7 @@ def warm_start_linear_gaussian(
 ) -> dict:
     """Decoder ← [A | extra | 0] (plus padding rows), encoder ← pinv(A).
 
-    Reference: /root/reference/vae.py:82-107. ``latent_off_dimension`` extra
+    Reference: reference/vae.py:82-107. ``latent_off_dimension`` extra
     random decoder columns model "off-manifold" latent directions; the
     posterior log-variance starts at -3 on the first
     intrinsic+off dimensions (active latents) and 0 elsewhere.
@@ -100,7 +100,7 @@ def warm_start_linear_gaussian(
     dec_const = jnp.concatenate([dec_top, dec_pad_rows], axis=0)  # (data, latent)
     dec_const = dec_const + 0.01 * jax.random.normal(k_dec, (data_dim, latent_dim))
 
-    # Host-side pinv: one-time init math; TPU SVD support is unreliable.
+    # Host-side pinv: one-time init math on a tiny matrix.
     # Jitted callers (the grid trainer) precompute it per row and pass it
     # in, since np.asarray(A) on a traced A is impossible.
     if pinv is None:

@@ -1,7 +1,7 @@
 """Invertible-flow building blocks (library surface parity with C15).
 
 The reference ships flow-model helper ops that its live VAE path never
-exercises but that form its library surface (/root/reference/utils.py:41-43,
+exercises but that form its library surface (reference/utils.py:41-43,
 140-310): an invertible BatchNorm with a cross-device moment-reduction hook,
 its inverse, invertible dense, coupling-layer masks, and 2×2 space-to-depth.
 Rebuilt here on linen with the same semantics; the cross-device hook takes a
@@ -21,7 +21,7 @@ from jax import lax
 
 
 class Constants:
-    """Hyperparameter constants (/root/reference/utils.py:15-22)."""
+    """Hyperparameter constants (reference/utils.py:15-22)."""
 
     lambd = 10
     alpha = 0.1
@@ -37,14 +37,14 @@ def inv_leaky_relu(x):
 
 
 def inv_dense(x, weight, bias):
-    """Invert y = x·W + b (/root/reference/utils.py:41-43)."""
+    """Invert y = x·W + b (reference/utils.py:41-43)."""
     return jnp.dot(x - bias, jnp.linalg.inv(weight))
 
 
 class InvertibleBatchNorm(nn.Module):
     """BatchNorm that records the exact (mul, mean) used per call so the
     transform can be inverted; batch moments optionally pmean'd across a
-    mesh axis. Reference: /root/reference/utils.py:140-242.
+    mesh axis. Reference: reference/utils.py:140-242.
 
     State collection ``batch_stats``: mean/var running averages plus
     recent_mul/recent_mean (the per-call affine actually applied).
@@ -118,7 +118,7 @@ class InvertibleBatchNorm(nn.Module):
 def inv_batch_norm(y, params, batch_stats, use_bias=True, use_scale=True):
     """Invert InvertibleBatchNorm given its params + recorded stats.
 
-    Reference: /root/reference/utils.py:245-261.
+    Reference: reference/utils.py:245-261.
     """
     mul = batch_stats["recent_mul"]
     mean = batch_stats["recent_mean"]
@@ -133,7 +133,7 @@ def inv_batch_norm(y, params, batch_stats, use_bias=True, use_scale=True):
 def get_mask(shape, reverse: bool, use_checkerboard: bool = True):
     """Coupling-layer masks: checkerboard or channel-split.
 
-    Reference: /root/reference/utils.py:264-291. ``shape`` is (H, W, C) or
+    Reference: reference/utils.py:264-291. ``shape`` is (H, W, C) or
     (B, H, W, C).
     """
     height, width, channels = shape[-3], shape[-2], shape[-1]
@@ -158,7 +158,7 @@ def get_mask(shape, reverse: bool, use_checkerboard: bool = True):
 def squeeze_2x2(x, reverse: bool = False):
     """2×2 space-to-depth (and its inverse) for multi-scale flows.
 
-    Reference: /root/reference/utils.py:294-310.
+    Reference: reference/utils.py:294-310.
     """
     if x.ndim != 4:
         raise ValueError("expected (B, H, W, C)")
@@ -179,11 +179,11 @@ def squeeze_2x2(x, reverse: bool = False):
 @jax.jit
 @jax.vmap
 def cross_entropy_loss(logits, label):
-    """Reference: /root/reference/utils.py:68-71."""
+    """Reference: reference/utils.py:68-71."""
     return -logits[label]
 
 
 @jax.jit
 def compute_accuracy(logits, labels):
-    """Reference: /root/reference/utils.py:74-76."""
+    """Reference: reference/utils.py:74-76."""
     return jnp.mean(jnp.argmax(logits, -1) == labels)

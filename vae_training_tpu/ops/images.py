@@ -1,9 +1,9 @@
 """Pure-JAX image tiling + resize — replaces the reference's OpenCV path.
 
 The reference tiles generated images into a grid and resizes with cv2
-(/root/reference/utils.py:79-133, its only OpenCV use). This version is pure
-JAX (jit-able, TPU-runnable) and writes PNGs via matplotlib, removing the
-cv2 dependency entirely.
+(reference/utils.py:79-133, its only OpenCV use). This version is pure
+JAX (jit-able) and writes PNGs via matplotlib when it is installed,
+removing the cv2 dependency entirely.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ def tile_images(
 ) -> jnp.ndarray:
     """Arrange (n, h, w[, c]) images into one grid image.
 
-    Matches the reference's layout math (/root/reference/utils.py:92-124):
+    Matches the reference's layout math (reference/utils.py:92-124):
     grid shape from sqrt(n·aspect), images mapped from [-1, 1] to [0, 1],
     `border` pixels between tiles.
     """
@@ -70,15 +70,14 @@ def img_tile(
     border_color: float = 0.0,
     resize_to: Tuple[int, int] = (256, 256),
 ):
-    """Reference-compatible entry point (/root/reference/utils.py:79)."""
+    """Reference-compatible entry point (reference/utils.py:79)."""
     tile = tile_images(jnp.asarray(imgs), aspect_ratio, border, border_color)
     tile = resize_image(tile, resize_to)
     tile = np.clip(np.asarray(tile), 0.0, 1.0)
     if save and fn is not None:
-        import matplotlib
+        from ..evals.plots import pyplot
 
-        matplotlib.use("Agg")
-        import matplotlib.pyplot as plt
-
-        plt.imsave(fn, tile, cmap="gray" if tile.ndim == 2 else None)
+        plt = pyplot()
+        if plt is not None:
+            plt.imsave(fn, tile, cmap="gray" if tile.ndim == 2 else None)
     return tile

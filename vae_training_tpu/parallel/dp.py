@@ -2,19 +2,19 @@
 
 Each device runs the full scan chunk locally on its shard of the batch; the
 only cross-device traffic is one gradient ``pmean`` per step, compiled by
-XLA onto ICI. Parameters and optimizer state are replicated and updated
+XLA into a collective. Parameters and optimizer state are replicated and updated
 identically on every device (the pmean makes updates deterministic across
 the mesh), so no parameter communication ever happens.
 
 Per-device randomness: the step key is folded with the device's axis index,
-giving independent sampling streams per device — the TPU-native replacement
+giving independent sampling streams per device — the on-device replacement
 for the reference's single host-side key chain.
 
-Two-level data parallelism (``--mesh dp_dcn=S,dp=N`` — S slices × N chips):
-the batch shards over BOTH axes and the gradient reduction is hierarchical:
-``pmean`` over ``dp`` first (ICI, within a slice), then over ``dp_dcn``
-(DCN, across slices) — so only one already-reduced gradient tensor per
-slice crosses the slow network per step. The per-device key fold uses the
+Two-level data parallelism (``--mesh dp_dcn=S,dp=N`` — S hosts × N
+devices): the batch shards over BOTH axes and the gradient reduction is
+hierarchical: ``pmean`` over ``dp`` first (within a host), then over
+``dp_dcn`` (across hosts) — so only one already-reduced gradient tensor per
+host crosses the slower inter-host network per step. The per-device key fold uses the
 linearized (dp_dcn, dp) index, which equals the plain ``dp=S*N`` index over
 the same device list — the two meshes sample identical per-device batches
 and differ only in reduction topology.
@@ -70,7 +70,8 @@ def make_dp_step_fns(
         z1, z2 = split_z(z, latent_dim)
         loss, grads = grad_fn(state.params, batch, z1, z2)
         # Equal shards ⇒ mean-of-means is the global-batch mean. Hierarchical
-        # when two-level: ICI reduce first, one reduced tensor crosses DCN.
+        # when two-level: reduce within the host first, then one reduced
+        # tensor crosses hosts.
         grads = jax.lax.pmean(grads, "dp")
         loss = jax.lax.pmean(loss, "dp")
         if dcn > 1:

@@ -1,24 +1,27 @@
 """Device mesh construction from a CLI spec string.
 
 The reference has no distributed support at all (SURVEY.md §2.2); scale-out
-here is the idiomatic TPU answer: a ``jax.sharding.Mesh`` over which the
-fused train step is sharded, with XLA compiling the collectives onto ICI.
+here is a ``jax.sharding.Mesh`` over which the fused train step is sharded,
+with XLA compiling the collectives.
 
 Spec grammar: comma-separated ``axis=size``, e.g. ``"dp=8"``,
 ``"dp=4,tp=2"``, or ``"dp_dcn=2,dp=4"``. Supported axes:
 
-- ``dp`` — data parallel within a slice: batch sharded, gradients
-  all-reduced over ICI.
+- ``dp`` — data parallel within a host: batch sharded, gradients
+  all-reduced across the host's devices.
 - ``tp`` — tensor parallel: MLP hidden dims sharded, activation
   collectives inserted by GSPMD.
-- ``dp_dcn`` — second-level data parallelism ACROSS slices/hosts (the
-  DCN axis of a multi-slice pod, SURVEY §2.2). Always the outermost mesh
-  axis regardless of spec order: ``jax.devices()`` is ordered by process,
-  so the leading axis is the one whose neighbors live on different
-  hosts/slices — reductions over it ride DCN, everything inside rides
-  ICI. The dp gradient reduction is correspondingly hierarchical
-  (``pmean`` over ``dp`` first, then over ``dp_dcn`` — only the already
-  intra-slice-reduced tensor crosses the slow network; parallel/dp.py).
+- ``dp_dcn`` — second-level data parallelism ACROSS hosts (SURVEY §2.2).
+  Always the outermost mesh axis regardless of spec order:
+  ``jax.devices()`` is ordered by process, so the leading axis is the one
+  whose neighbors live on different hosts — reductions over it cross the
+  inter-host network, everything inside stays within a host. The dp
+  gradient reduction is correspondingly hierarchical (``pmean`` over
+  ``dp`` first, then over ``dp_dcn`` — only the already host-reduced
+  tensor crosses hosts; parallel/dp.py).
+
+The mesh is a reshape of ``jax.devices()``: devices within a host are all
+connected to each other, so no topology-aware layout is needed.
 
 ``axis=-1`` means "all remaining devices".
 """
@@ -79,8 +82,8 @@ def make_mesh(spec: str, devices=None, allow_uneven: bool = False) -> Mesh:
     if "dp" not in axes:
         axes["dp"] = 1
     # Canonical axis order (dp_dcn, dp, tp): dp_dcn MUST lead so its rows
-    # land on distinct slices/hosts (see module docstring), and dp-before-tp
-    # keeps tp groups on adjacent devices (shortest ICI rings).
+    # land on distinct hosts (see module docstring), and dp-before-tp keeps
+    # tp groups on adjacent devices.
     axes = {n: axes[n] for n in SUPPORTED_AXES if n in axes}
     devices = list(devices if devices is not None else jax.devices())
     wildcards = [n for n, s in axes.items() if s == -1]

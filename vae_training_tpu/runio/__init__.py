@@ -1,26 +1,29 @@
 import os
 
+# The checkout (or install) root: the package directory's parent.
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+DEFAULT_COMPILE_CACHE = os.path.join(_ROOT, ".jax_cache")
 
-def enable_compile_cache(cache_dir: str | None = None) -> None:
-    """Enable jax's persistent compilation cache (idempotent).
 
-    Sweeps run many processes/rows with identical programs; remote-compile
-    TPU runtimes have high and variable compile latency, so caching cuts
-    repeat compiles to ~0. Called by run.py and sweep.py.
-    """
+def compile_cache_dir() -> str | None:
+    """Where compiled programs are cached: None when the environment's
+    ``JAX_COMPILATION_CACHE_DIR`` is set (jax then reads it itself), else
+    one fixed directory inside the checkout. The path is part of the
+    cache's identity, so it must not move between runs."""
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    return DEFAULT_COMPILE_CACHE
+
+
+def enable_compile_cache() -> None:
+    """Enable jax's persistent compilation cache: sweeps and repeated runs
+    compile the same programs."""
     import jax
 
-    cache_dir = cache_dir or os.environ.get(
-        "VAE_TPU_COMPILE_CACHE",
-        os.path.join(os.path.expanduser("~"), ".cache", "vae_tpu_xla"),
-    )
-    if not cache_dir:
-        return
-    try:
+    cache_dir = compile_cache_dir()
+    if cache_dir is not None:
         jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
 
 
 from .checkpoint import (
@@ -33,6 +36,7 @@ from .export import load_model_pkl, save_model_pkl, to_reference_state_dict
 from .outdir import get_output_dir, make_output_dir
 
 __all__ = [
+    "compile_cache_dir",
     "enable_compile_cache",
     "checkpoint_exists",
     "restore_checkpoint",

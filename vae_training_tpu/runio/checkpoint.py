@@ -1,12 +1,13 @@
 """Full training checkpoints with a WORKING resume path.
 
 The reference half-implements this: it saves an optimizer state dict at every
-plot interval but never calls its own load path (/root/reference/model.py:37-43,
+plot interval but never calls its own load path (reference/model.py:37-43,
 91-94; SURVEY.md §3.5). Here a checkpoint is the complete ``TrainState`` —
-params, Adam moments, step counter, and both PRNG base keys — serialized with
-flax msgpack, so ``--resume <dir>`` continues bit-exactly where the run
-stopped (same fold_in(step) key derivation ⇒ the resumed run consumes the
-identical random stream).
+params, Adam moments, step counter, and both PRNG base keys — written as
+one ``.npz`` of its leaves keyed by tree path (numpy only), so
+``--resume <dir>`` continues bit-exactly where the run stopped (same
+fold_in(step) key derivation ⇒ the resumed run consumes the identical
+random stream).
 """
 
 from __future__ import annotations
@@ -18,12 +19,13 @@ import threading
 from typing import Optional
 
 import jax
-from flax import serialization
+import jax.numpy as jnp
+import numpy as np
 
-CKPT_NAME = "ckpt.msgpack"
+CKPT_NAME = "ckpt.npz"
 META_NAME = "ckpt_meta.json"
 AUX_NAME = "ckpt_aux.pkl"
-# One level of checkpoint retention: each msgpack save sets the previous
+# One level of checkpoint retention: each npz save sets the previous
 # {ckpt, aux, meta} trio aside under this suffix instead of overwriting it.
 # Grid fault tolerance depends on it — a SIGKILL can land between two rows'
 # (or two processes') checkpoint flushes, leaving rows one save event apart;
@@ -76,7 +78,7 @@ def _write_aux(dirname: str, aux, suffix: str) -> None:
     counter, host key chain) next to the device checkpoint, atomically.
     This is what makes a preempted+resumed run's artifacts identical to an
     uninterrupted run's — the TrainState alone only makes the TRAINING
-    stream bit-exact (ref artifact contract: /root/reference/model.py:246-252)."""
+    stream bit-exact (ref artifact contract: reference/model.py:246-252)."""
     import pickle
 
     aux_path = os.path.join(dirname, AUX_NAME)
@@ -100,10 +102,47 @@ def restore_checkpoint_aux(dirname: str, prev: bool = False) -> Optional[dict]:
         return None
 
 
+def _write_npz(path: str, state) -> None:
+    """Every leaf of ``state`` as one array, keyed by its tree path.
+    numpy has no bfloat16, so bf16 leaves (--adam_dtype bf16 moments) are
+    stored as their uint16 bit patterns."""
+    arrays = {}
+    for key_path, leaf in jax.tree_util.tree_leaves_with_path(
+            jax.device_get(state)):
+        a = np.asarray(leaf)
+        if a.dtype == jnp.bfloat16:
+            a = a.view(np.uint16)
+        arrays[jax.tree_util.keystr(key_path)] = a
+    with open(path, "wb") as f:
+        np.savez(f, **arrays)
+
+
+def _read_npz(path: str, template):
+    """Rebuild ``template``'s tree from an npz written by _write_npz."""
+    flat, treedef = jax.tree_util.tree_flatten_with_path(template)
+    leaves = []
+    with np.load(path) as z:
+        for key_path, t in flat:
+            key = jax.tree_util.keystr(key_path)
+            if key not in z.files:
+                raise ValueError(
+                    f"checkpoint {path} has no leaf {key}: it was written "
+                    f"for another model or optimizer configuration")
+            a = z[key]
+            dtype = np.dtype(getattr(t, "dtype", a.dtype))
+            if dtype == jnp.bfloat16 and a.dtype == np.uint16:
+                a = a.view(dtype)
+            if a.dtype != dtype or a.shape != np.shape(t):
+                raise ValueError(
+                    f"checkpoint {path} leaf {key} is {a.dtype}{a.shape}, "
+                    f"expected {dtype}{np.shape(t)}")
+            leaves.append(a)
+    return jax.tree_util.tree_unflatten(treedef, leaves)
+
+
 def save_checkpoint(dirname: str, state, extra_meta: Optional[dict] = None,
                     aux: Optional[dict] = None) -> str:
-    payload = serialization.to_bytes(jax.device_get(state))
-    meta = {"step": int(state.step), "backend": "msgpack"}
+    meta = {"step": int(state.step), "backend": "npz"}
     if extra_meta:
         meta.update(extra_meta)
     path = os.path.join(dirname, CKPT_NAME)
@@ -126,8 +165,7 @@ def save_checkpoint(dirname: str, state, extra_meta: Optional[dict] = None,
         # (restore_checkpoint falls back to .prev if the current ckpt file
         # is missing mid-swap).
         tmp = path + suffix
-        with open(tmp, "wb") as f:
-            f.write(payload)
+        _write_npz(tmp, state)
         atmp = None
         if aux is not None:
             # stamp the step: the three files are individually atomic but
@@ -158,7 +196,7 @@ def save_checkpoint(dirname: str, state, extra_meta: Optional[dict] = None,
 
 
 def save_checkpoint_async(dirname: str, state, extra_meta: Optional[dict] = None,
-                          backend: str = "msgpack", aux: Optional[dict] = None):
+                          backend: str = "npz", aux: Optional[dict] = None):
     """Non-blocking checkpoint: snapshot to host now, serialize + write on a
     background thread so training never stalls on disk I/O. Returns a
     future; writes are serialized on one worker so checkpoints never
@@ -207,37 +245,33 @@ def restore_checkpoint(dirname: str, state_template):
     Both backends write the shared ``ckpt_meta.json`` under the step-ordering
     guard, so its ``backend`` field always names the artifact holding the
     newest state — honor it rather than preferring one format (a stale
-    msgpack async save must not shadow a newer orbax sync save)."""
+    npz async save must not shadow a newer orbax sync save)."""
     meta = _read_meta(dirname)
-    msgpack_path = os.path.join(dirname, CKPT_NAME)
+    npz_path = os.path.join(dirname, CKPT_NAME)
     orbax_path = os.path.join(dirname, ORBAX_NAME)
     have_orbax = (os.path.exists(orbax_path)
                   or os.path.exists(orbax_path + ".old"))
     backend = (meta or {}).get("backend")
     if backend == "orbax" and have_orbax:
         return restore_checkpoint_orbax(dirname, state_template)
-    if backend == "msgpack" and os.path.exists(msgpack_path):
-        pass  # fall through to the msgpack read below
-    elif not os.path.exists(msgpack_path) and have_orbax:
+    if backend == "npz" and os.path.exists(npz_path):
+        pass  # fall through to the npz read below
+    elif not os.path.exists(npz_path) and have_orbax:
         return restore_checkpoint_orbax(dirname, state_template)
-    if (not os.path.exists(msgpack_path)
-            and os.path.exists(msgpack_path + PREV_SUFFIX)):
+    if (not os.path.exists(npz_path)
+            and os.path.exists(npz_path + PREV_SUFFIX)):
         # killed between the retention set-aside and the install: the
         # retained trio is the only complete checkpoint
-        msgpack_path += PREV_SUFFIX
-    with open(msgpack_path, "rb") as f:
-        data = f.read()
-    return serialization.from_bytes(state_template, data)
+        npz_path += PREV_SUFFIX
+    return _read_npz(npz_path, state_template)
 
 
 def restore_checkpoint_prev(dirname: str, state_template):
-    """Restore the RETAINED previous msgpack checkpoint (the save before the
+    """Restore the RETAINED previous npz checkpoint (the save before the
     newest one). Raises OSError if no .prev checkpoint exists. Used by the
     grid rollback path when a SIGKILL left rows at different steps."""
-    path = os.path.join(dirname, CKPT_NAME + PREV_SUFFIX)
-    with open(path, "rb") as f:
-        data = f.read()
-    return serialization.from_bytes(state_template, data)
+    return _read_npz(os.path.join(dirname, CKPT_NAME + PREV_SUFFIX),
+                     state_template)
 
 
 def promote_prev_checkpoint(dirname: str) -> None:
@@ -259,14 +293,15 @@ def promote_prev_checkpoint(dirname: str) -> None:
 
 def checkpoint_exists(dirname: str) -> bool:
     orbax = os.path.join(dirname, ORBAX_NAME)
-    msgpack = os.path.join(dirname, CKPT_NAME)
-    return (os.path.exists(msgpack)
-            or os.path.exists(msgpack + PREV_SUFFIX)
+    npz = os.path.join(dirname, CKPT_NAME)
+    return (os.path.exists(npz)
+            or os.path.exists(npz + PREV_SUFFIX)
             or os.path.exists(orbax) or os.path.exists(orbax + ".old"))
 
 
 # ---------------------------------------------------------------------------
-# Orbax backend (ecosystem-standard checkpoint format; --ckpt_backend orbax)
+# Orbax backend (ecosystem-standard checkpoint format; --ckpt_backend orbax;
+# orbax is an optional dependency, imported only here)
 # ---------------------------------------------------------------------------
 
 ORBAX_NAME = "orbax_ckpt"
@@ -285,7 +320,7 @@ def save_checkpoint_orbax(dirname: str, state,
     import shutil
 
     with _write_lock:
-        # Same step-ordering guard as the msgpack saver: a queued async save
+        # Same step-ordering guard as the npz saver: a queued async save
         # (either backend) must never shadow a newer checkpoint.
         prev = _read_meta(dirname)
         if prev is not None and prev.get("step", -1) > int(state.step):

@@ -1,18 +1,19 @@
 """model.pkl export in the reference's optimizer-state-dict layout.
 
-The reference persists ``flax.serialization.to_state_dict(optimizer)`` via
-pickle (/root/reference/model.py:85-89), i.e. a nested dict:
+The reference persists its optimizer's flax state dict via pickle
+(reference/model.py:85-89), i.e. a nested dict:
 
     {"target": <param tree: {"Decoder": ..., "Encoder": ..., "epsilon_p"...}>,
      "state": {"step": int,
                "param_states": <per-param {"grad_ema", "grad_sq_ema"}>}}
 
-``target`` is the RAW param tree — pre-Linen ``flax.nn.Model`` serializes
-as its params with no "params" wrapper (the reference indexes
-``initial_params['Decoder']`` directly, /root/reference/vae.py:87-105). We
-emit the same layout from optax's Adam state so downstream analysis
-written against reference artifacts keeps working, and can load it back
-(making the reference's dead ``--state_dict`` flag real — SURVEY.md §3.5).
+``target`` is the RAW param tree — the reference's pre-Linen model
+serializes as its params with no "params" wrapper (the reference indexes
+``initial_params['Decoder']`` directly, reference/vae.py:87-105). We
+emit the same layout, as plain dicts of numpy arrays, from optax's Adam
+state so downstream analysis written against reference artifacts keeps
+working, and can load it back (making the reference's dead
+``--state_dict`` flag real — SURVEY.md §3.5).
 ``load_model_pkl`` also accepts this repo's pre-round-2 exports, which
 wrapped ``target`` in a ``{"params": ...}`` level.
 """
@@ -20,48 +21,34 @@ wrapped ``target`` in a ``{"params": ...}`` level.
 from __future__ import annotations
 
 import pickle
-from typing import Any, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
-from flax import serialization
-
-
-def _adam_moments(opt_state) -> Tuple[Any, Any]:
-    """Extract (mu, nu) pytrees from an optax adam state (possibly chained)."""
-    for s in jax.tree_util.tree_leaves(
-        opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState)
-    ):
-        if isinstance(s, optax.ScaleByAdamState):
-            return s.mu, s.nu
-    raise ValueError("opt_state does not contain a ScaleByAdamState")
-
-
-def _adam_count(opt_state) -> int:
-    for s in jax.tree_util.tree_leaves(
-        opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState)
-    ):
-        if isinstance(s, optax.ScaleByAdamState):
-            return int(s.count)
-    return 0
 
 
 def to_reference_state_dict(params, opt_state) -> dict:
-    mu, nu = _adam_moments(opt_state)
+    from ..train.state import adam_state
+
+    adam = adam_state(opt_state)
     param_states = jax.tree_util.tree_map(
-        lambda m, v: {"grad_ema": np.asarray(m), "grad_sq_ema": np.asarray(v)}, mu, nu
-    )
-    target = serialization.to_state_dict(params)
-    target = jax.tree_util.tree_map(np.asarray, target)
+        lambda m, v: {"grad_ema": np.asarray(m), "grad_sq_ema": np.asarray(v)},
+        adam.mu, adam.nu)
     return {
-        "target": target,
+        "target": jax.tree_util.tree_map(np.asarray, params),
         "state": {
-            "step": _adam_count(opt_state),
-            "param_states": serialization.to_state_dict(param_states),
+            "step": int(adam.count),
+            "param_states": param_states,
         },
     }
+
+
+def _restore_like(template, state_dict):
+    """``state_dict``'s arrays in ``template``'s tree structure (raises
+    ValueError when the two trees differ)."""
+    return jax.tree_util.tree_map(lambda _, v: np.asarray(v), template,
+                                  state_dict)
 
 
 def save_model_pkl(path: str, params, opt_state) -> None:
@@ -75,25 +62,23 @@ def load_model_pkl(path: str, params_template, opt_state_template):
     Accepts both this framework's exports and structurally-matching
     reference artifacts (same param tree shape).
     """
+    from ..train.state import adam_state
+
     with open(path, "rb") as f:
         sd = pickle.load(f)
     target_sd = sd["target"]
     if isinstance(target_sd, dict) and set(target_sd) == {"params"}:
         # this repo's pre-round-2 exports wrapped the tree one level deep
         target_sd = target_sd["params"]
-    params = serialization.from_state_dict(params_template, target_sd)
-    mu_t, nu_t = _adam_moments(opt_state_template)
+    params = _restore_like(params_template, target_sd)
+    template = adam_state(opt_state_template)
+    mu_t, nu_t = template.mu, template.nu
     flat_ps = sd["state"]["param_states"]
-    mu = serialization.from_state_dict(
-        jax.tree_util.tree_map(lambda m: m, mu_t),
-        jax.tree_util.tree_map(lambda d: d["grad_ema"], flat_ps,
-                               is_leaf=lambda x: isinstance(x, dict) and "grad_ema" in x),
-    )
-    nu = serialization.from_state_dict(
-        jax.tree_util.tree_map(lambda v: v, nu_t),
-        jax.tree_util.tree_map(lambda d: d["grad_sq_ema"], flat_ps,
-                               is_leaf=lambda x: isinstance(x, dict) and "grad_ema" in x),
-    )
+    is_moments = lambda x: isinstance(x, dict) and "grad_ema" in x
+    mu = _restore_like(mu_t, jax.tree_util.tree_map(
+        lambda d: d["grad_ema"], flat_ps, is_leaf=is_moments))
+    nu = _restore_like(nu_t, jax.tree_util.tree_map(
+        lambda d: d["grad_sq_ema"], flat_ps, is_leaf=is_moments))
     count = jnp.asarray(sd["state"]["step"], jnp.int32)
 
     def rebuild(s):

@@ -1,6 +1,6 @@
 """Output directory management + args.json run manifest.
 
-Reference: /root/reference/utils.py:46-65. Differences (deliberate fixes per
+Reference: reference/utils.py:46-65. Differences (deliberate fixes per
 SURVEY.md §7 quirk table): ``-ow`` recursively clears the directory (the
 reference's per-file ``os.remove`` crashes on subdirectories), and the data
 root is configurable (reference hardcodes ``data/``).

@@ -1,8 +1,8 @@
 """Training state: one pytree carrying everything the fused step mutates.
 
 Replaces the reference's scattered mutable host state (optimizer, model,
-python-side PRNG key chains — /root/reference/model.py:29-34,57-59,
-/root/reference/vae.py:112-129) with a single immutable pytree that lives on
+python-side PRNG key chains — reference/model.py:29-34,57-59,
+reference/vae.py:112-129) with a single immutable pytree that lives on
 device and is threaded through ``lax.scan``. PRNG: per-step keys are derived
 by ``fold_in(base_key, step)`` so a scan chunk needs no host key splits.
 """
@@ -13,12 +13,12 @@ from typing import Any
 
 import jax
 import optax
-from flax import struct
+
+from ..utils.pytree import PyTreeNode
 
 # The framework's Adam hyperparameters (reference flax.optim.Adam defaults —
-# /root/reference/vae.py:113). Single source of truth: the Pallas kernels
-# implement Adam with THESE constants, so optimizer construction must go
-# through make_adam() to keep kernel and XLA paths in sync.
+# reference/vae.py:113). Optimizer construction goes through
+# make_adam() so every trainer shares them.
 ADAM_B1 = 0.9
 ADAM_B2 = 0.999
 ADAM_EPS = 1e-8
@@ -28,16 +28,12 @@ def make_adam(learning_rate: float,
               adam_dtype: str = "f32") -> optax.GradientTransformation:
     """The framework's optimizer. ``adam_dtype="bf16"`` stores the moments
     of every WEIGHT MATRIX (ndim>=2 leaf) in bfloat16 — compute stays f32 —
-    halving the optimizer's VMEM load/store traffic, which is the measured
-    bound of the Adam-dominated fused MLP step (docs/architecture.md).
-    1-D leaves (biases, epsilon_p, epsilon) keep f32 moments: they are
-    negligible traffic and ride the kernels' f32 vec/bias buffers.
+    halving the optimizer state's memory and its per-step read/write
+    traffic. 1-D leaves (biases, epsilon_p, epsilon) keep f32 moments.
 
-    The rounding contract shared bitwise with the Pallas kernels: each step
-    computes m/v in f32, rounds to bf16 (round-to-nearest-even), and uses
-    the ROUNDED values for the parameter update — so a per-step XLA
-    trajectory and a fused multi-step chunk stay equivalent at every chunk
-    boundary."""
+    Rounding contract: each step computes m/v in f32, rounds to bf16
+    (round-to-nearest-even), and uses the ROUNDED values for the parameter
+    update, so the trajectory does not depend on how steps are chunked."""
     if adam_dtype == "f32":
         return optax.adam(learning_rate, b1=ADAM_B1, b2=ADAM_B2, eps=ADAM_EPS)
     if adam_dtype != "bf16":
@@ -55,7 +51,7 @@ def _scale_by_adam_bf16() -> optax.GradientTransformation:
     """optax.scale_by_adam with bfloat16 moment STORAGE for ndim>=2 leaves.
 
     Reuses optax.ScaleByAdamState so every state introspection in the repo
-    (kernel pack/unpack, checkpointing) works unchanged. Update math is
+    (model.pkl export, tp sharding, checkpointing) works unchanged. Update math is
     optax's: mhat/(sqrt(vhat)+eps) with bias corrections 1-beta^t, computed
     in f32 FROM THE ROUNDED moments (see make_adam docstring)."""
     import jax.numpy as jnp
@@ -97,7 +93,17 @@ def _scale_by_adam_bf16() -> optax.GradientTransformation:
     return optax.GradientTransformation(init, update)
 
 
-class TrainState(struct.PyTreeNode):
+def adam_state(opt_state) -> optax.ScaleByAdamState:
+    """The ScaleByAdamState inside an optax state (possibly chained)."""
+    for s in jax.tree_util.tree_leaves(
+            opt_state,
+            is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState)):
+        if isinstance(s, optax.ScaleByAdamState):
+            return s
+    raise ValueError("opt_state does not contain a ScaleByAdamState")
+
+
+class TrainState(PyTreeNode):
     params: Any
     opt_state: Any
     step: jax.Array  # int32 scalar

@@ -1,9 +1,9 @@
 """The fused train step and scan-chunked training program.
 
-TPU-first inversion of the reference's hot loop. The reference dispatches,
+Accelerator-first inversion of the reference's hot loop. The reference dispatches,
 per step, from Python: a dataset sample (several small XLA ops), a host key
 split, a (batch, latent+data) normal draw, and the jitted train_step
-(/root/reference/model.py:213-222, /root/reference/vae.py:123-129). That
+(reference/model.py:213-222, reference/vae.py:123-129). That
 per-step host dispatch is the throughput ceiling. Here ONE jitted,
 donated-buffer program runs ``n_steps`` steps under ``lax.scan``:
 
@@ -11,7 +11,7 @@ donated-buffer program runs ``n_steps`` steps under ``lax.scan``:
     Adam update
 
 and returns the per-step losses (preserving the reference's per-step
-``vae_losses`` stat channel — /root/reference/vae.py:130). The host wakes
+``vae_losses`` stat channel — reference/vae.py:130). The host wakes
 only at eval cadence.
 """
 
@@ -44,7 +44,7 @@ class StepFns(NamedTuple):
     # Fused eval: (params, data_key, z_key, epsilon_scalar) -> stats dict.
     # One device program for real-batch sampling + generation + ELBO
     # decomposition + analytic scoring (the reference runs ~6 separate
-    # dispatches per eval: /root/reference/model.py:153-168).
+    # dispatches per eval: reference/model.py:153-168).
     eval_step: Optional[Callable] = None
 
 
@@ -52,7 +52,7 @@ def sample_z(key: jax.Array, n: int, latent_dim: int, data_dim: int) -> jax.Arra
     """One gaussian draw of shape (n, latent_dim + data_dim): z1 for the
     reparameterisation, z2 for the decoder output noise.
 
-    Reference: /root/reference/model.py:225-228 + split at vae.py:127-128.
+    Reference: reference/model.py:225-228 + split at vae.py:127-128.
     """
     return jax.random.normal(key, (n, latent_dim + data_dim))
 
@@ -72,7 +72,7 @@ def make_elbo_grad_fn(model: VAE):
             {"params": params}, batch, z1, z2)
         # epoch-mode conv batches arrive NHWC (see make_epoch_chunk's corpus
         # layout note); the ELBO is always over flattened pixels, matching
-        # the reference's vectorized images (/root/reference/vae.py:124).
+        # the reference's vectorized images (reference/vae.py:124).
         # For the flat paths this reshape is the identity.
         flat = batch.reshape(batch.shape[0], -1)
         loss, _, _ = elbo_terms(flat, x_hat, mu, logvar_e, epsilon)
@@ -123,7 +123,7 @@ def make_step_fns(
         """Eval-mode ELBO decomposition.
 
         Matches the reference's jitted ``VAE.loss``
-        (/root/reference/networks.py:103-113): same forward as training,
+        (reference/networks.py:103-113): same forward as training,
         returns component means plus the current logvar_e / epsilon params.
         """
         x_hat, mu, logvar_e, epsilon = model.apply({"params": params}, batch, z1, z2)
@@ -133,7 +133,7 @@ def make_step_fns(
     @jax.jit
     def generate(params, z1, z2, epsilon):
         """Ancestral sampling — jitted ONCE (the reference re-jits a fresh
-        partial on every call: /root/reference/vae.py:199)."""
+        partial on every call: reference/vae.py:199)."""
         return model.apply(
             {"params": params}, z1, z2, epsilon, method=type(model).generate
         )
@@ -190,26 +190,24 @@ def make_epoch_chunk(model, dataset, tx: optax.GradientTransformation,
     """One FULL epoch as a single compiled program (epoch-mode datasets).
 
     The dataset array lives on device; the epoch is a scan over minibatch
-    slices of an on-device shuffled permutation — the TPU-native replacement
+    slices of an on-device shuffled permutation — the on-device replacement
     for the reference's torch-dataloader epoch loop
-    (/root/reference/model.py:176-193). Returns
+    (reference/model.py:176-193). Returns
     ``epoch_chunk(state, epoch, n_batches) -> (state, losses[n_batches])``.
 
     With ``mesh`` (a dp-axis Mesh), each minibatch is split over the data
     axis: every device takes its contiguous slice of the epoch permutation,
     draws its own reparameterization noise (per-device fold_in stream, like
-    parallel/dp.py), and gradients are pmean'd over ICI — params stay
+    parallel/dp.py), and gradients are pmean'd across devices — params stay
     replicated and updates are identical on every device.
     """
     latent_dim = model.latent_dim
     data_dim = dataset.dimension
-    # Corpus layout (measured on v5e, tools/probe_conv_layout.py): a conv
-    # model's C=1 input wants the conv layout, and gathering from a FLAT
-    # corpus fuses the take with a relayout worth ~21 us/step (~7% of the
-    # epoch program). Store the corpus in the shape the first conv consumes
-    # so the per-step gather emits conv-layout slabs directly; the relayout
-    # happens once, at trace time. Values are identical either way (reshape
-    # then take == take then reshape on axis 0), so losses are unchanged.
+    # Corpus layout: store the corpus in the shape the first conv consumes
+    # so the per-step gather emits conv-layout slabs directly and no
+    # per-step relayout follows it. Values are identical either way
+    # (reshape then take == take then reshape on axis 0), so losses are
+    # unchanged.
     if hasattr(model, "image_hwc"):
         h, w, c = model.image_hwc
         corpus = dataset.images.reshape(dataset.images.shape[0], h, w, c)
@@ -259,9 +257,8 @@ def make_epoch_chunk(model, dataset, tx: optax.GradientTransformation,
             s, batch = carry
             # software pipeline: issue step i+1's corpus gather BEFORE this
             # step's compute — it has no dependency on the grads, so the
-            # scheduler overlaps the (relayout-fused, ~20 µs) gather DMA
-            # with the conv stack instead of serializing it. Data, order,
-            # and RNG streams are IDENTICAL to the unpipelined loop.
+            # scheduler may overlap the gather with the conv stack. Data,
+            # order, and RNG streams are IDENTICAL to the unpipelined loop.
             next_batch = get_batch(i + 1)
             if mesh is None:
                 bs = batch_size
@@ -275,7 +272,7 @@ def make_epoch_chunk(model, dataset, tx: optax.GradientTransformation,
             loss, grads = grad_fn(s.params, batch, z1, z2)
             if mesh is not None:
                 # equal shards ⇒ mean-of-means is the global-batch mean;
-                # hierarchical when two-level (ICI reduce, then DCN)
+                # hierarchical when two-level (within hosts, then across)
                 grads = jax.lax.pmean(grads, "dp")
                 loss = jax.lax.pmean(loss, "dp")
                 if dcn > 1:

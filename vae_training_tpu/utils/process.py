@@ -4,7 +4,7 @@ In a ``jax.distributed`` run every process executes the same program — all
 processes must participate in every collective device computation — but
 host-side effects (artifact files, checkpoints, console stats) must happen
 exactly once. The reference is single-process (its only distributed gesture
-is the dead pmean hook at /root/reference/utils.py:215-221); here process 0
+is the dead pmean hook at reference/utils.py:215-221); here process 0
 is the writer, the idiomatic JAX multi-host convention.
 """
 

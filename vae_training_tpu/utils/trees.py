@@ -1,7 +1,7 @@
 """Pytree math utilities.
 
 ``correlation_ratio`` generalizes the reference's hand-rolled per-parameter
-landscape diagnostic (/root/reference/vae.py:143-179) to arbitrary pytrees:
+landscape diagnostic (reference/vae.py:143-179) to arbitrary pytrees:
 
     ratio = -⟨∇loss(θ), θ* − θ⟩ / ‖θ* − θ‖²
 
@@ -31,7 +31,7 @@ def tree_sq_norm(a) -> jax.Array:
 def correlation_ratio(opt_params, params, grads) -> jax.Array:
     """Whole-tree ratio: sums the per-leaf inner products and squared norms
     before dividing — exactly the reference's accumulation structure
-    (/root/reference/vae.py:144-179 accumulates ``inner_product`` and
+    (reference/vae.py:144-179 accumulates ``inner_product`` and
     ``squared_norm`` across its hand-enumerated leaves and divides once)."""
     displacement = jax.tree_util.tree_map(
         lambda o, p: o - p, opt_params, params
@@ -45,7 +45,7 @@ def correlation_ratio_per_param(opt_params, params, grads) -> dict:
     (kernel/bias/epsilon/epsilon_p), keyed by its slash-joined param path —
     the per-parameter granularity of the reference's hand-rolled diagnostic,
     which computes a separate displacement and inner product for every leaf
-    (/root/reference/vae.py:149-177) before accumulating. Zero-displacement
+    (reference/vae.py:149-177) before accumulating. Zero-displacement
     leaves yield NaN (0/0), matching the formula.
     """
     out = {}
@@ -66,12 +66,11 @@ def correlation_ratio_per_param(opt_params, params, grads) -> dict:
 def sin_theta_distance(A: jnp.ndarray, B: jnp.ndarray) -> jax.Array:
     """Sin-theta subspace distance between (column spaces of) A and B.
 
-    Reference: /root/reference/utils.py:317-325 (assumes orthogonal inputs).
+    Reference: reference/utils.py:317-325 (assumes orthogonal inputs).
 
-    The SVDs run on HOST numpy (this repo's convention for every
-    decomposition — device SVD hangs nondeterministically on the TPU
-    runtime); inputs are fetched, the result returns as a jax scalar, so
-    the jnp-facing signature is unchanged. Not jit-traceable by design.
+    The SVDs of these small matrices run on HOST numpy (one-off analysis
+    math); inputs are fetched, the result returns as a jax scalar, so the
+    jnp-facing signature is unchanged. Not jit-traceable by design.
     """
     import numpy as np
 
